@@ -1,18 +1,19 @@
-"""historian-tpu: a TPU-native statistical phylogenetics framework.
+"""historian-tpu: a GPU-accelerated statistical phylogenetics framework.
 
 A from-scratch reimplementation of the capabilities of evoldoers/historian
 (multiple alignment + ancestral sequence reconstruction by transducer
 composition; EM rate fitting; MCMC tree/alignment co-sampling; simulation),
-designed TPU-first:
+designed for an accelerator:
 
 - model layer and graph surgery run on host in float64 (numpy) -- these are
   tiny (alphabet <= 64) and latency-bound, not FLOP-bound;
 - the hot loops (Felsenstein column batches, banded pairwise DP, distance
   matrices, transducer-composition Forward/Backward fills) run as JAX/XLA
-  and Pallas kernels in float32 log space, batched over columns / states /
-  mixture components so the MXU and VPU see large regular work;
+  kernels (one of them CUDA through jax.ffi) in float32 log space, batched
+  over columns / states / mixture components so the device sees large
+  regular work;
 - multi-chip scaling uses jax.sharding meshes with psum-reduced event counts
-  (the TPU-native analogue of the reference's count/sum file MapReduce).
+  (the on-device analogue of the reference's count/sum file MapReduce).
 
 Reference layer map: see SURVEY.md (citations into /root/reference).
 """

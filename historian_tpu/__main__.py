@@ -1,4 +1,6 @@
-from historian_tpu.cli import run_and_exit
+import sys
+
+from historian_tpu.cli import main
 
 if __name__ == "__main__":
-    run_and_exit()
+    sys.exit(main())

@@ -1,6 +1,6 @@
 """Alignment-path algebra.
 
-TPU-native counterpart of the reference's alignpath layer
+Counterpart of the reference's alignpath layer
 (/root/reference/src/alignpath.h:9-64): an AlignPath maps row index ->
 boolean per-column "emits a residue here" vector.  We store rows as numpy
 bool arrays so column reductions (empty-column removal, match counting for

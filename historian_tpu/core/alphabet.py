@@ -1,9 +1,9 @@
 """Alphabets and tokenization.
 
-TPU-native counterpart of the reference's AlphabetOwner
+Counterpart of the reference's AlphabetOwner
 (/root/reference/src/model.h:21-41): an ordered symbol set with a wildcard
 character, mapping characters <-> integer tokens.  Tokenization here is
-vectorized (numpy lookup tables) because on TPU whole sequences become
+vectorized (numpy lookup tables) because on the device whole sequences become
 one-hot / integer tensors, not per-character loops.
 """
 

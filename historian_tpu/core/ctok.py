@@ -1,6 +1,6 @@
 """Codon <-> single-character tokenization for codon-level models.
 
-TPU-native counterpart of the reference's CodonTokenizer
+Counterpart of the reference's CodonTokenizer
 (/root/reference/src/ctok.h:7-45).  The token characters themselves are
 fixed interoperability data: the reference's ECM codon model files encode
 their 61-codon alphabet with these exact single-character tokens, so any

@@ -1,6 +1,6 @@
 """Sequence records, FASTA/FASTQ IO and k-mer indexing.
 
-TPU-native counterpart of the reference's fastseq layer
+Counterpart of the reference's fastseq layer
 (/root/reference/src/fastseq.h:18-86): FastSeq records, gzip-aware FASTA
 reading, 50-char-wrapped FASTA writing, duplicate-name detection, and the
 k-mer index used to seed banded-diagonal alignment envelopes.  K-mer

@@ -1,6 +1,6 @@
 """Stockholm alignment format read/write.
 
-TPU-native counterpart of the reference's Stockholm layer
+Counterpart of the reference's Stockholm layer
 (/root/reference/src/stockholm.h:16-40): gapped rows plus #=GF / #=GC /
 #=GR / #=GS annotation maps, with tree embedding via the #=GF NH tag.
 The writer reproduces the reference's column-width and blocking rules so

@@ -1,13 +1,13 @@
 """Phylogenetic trees: Newick IO, traversals, NJ and UPGMA builders.
 
-TPU-native counterpart of the reference's tree layer
+Counterpart of the reference's tree layer
 (/root/reference/src/tree.h:25-121).  Same invariants: nodes are stored in
 postorder (every child index < parent index, root = last node); branch
 lengths are clamped to TREE_MIN_BRANCH_LEN at parse; NJ follows Durbin et
 al. pp170-171 with the Kuhner-Felsenstein negative-branch correction
 (tree.cpp:240-352); UPGMA is node-height based and yields an ultrametric
 tree (tree.cpp:362-454).  The O(N^2)/O(N^3) builders stay on host (N is
-small); the distance *matrix* that feeds them is computed on TPU
+small); the distance *matrix* that feeds them is computed on the device
 (historian_tpu.ops.distance).
 """
 

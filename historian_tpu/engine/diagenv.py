@@ -1,10 +1,10 @@
 """K-mer-seeded banded diagonal envelopes for pairwise DP.
 
-TPU-native counterpart of the reference's DiagonalEnvelope
+Counterpart of the reference's DiagonalEnvelope
 (/root/reference/src/diagenv.h:23-155, diagenv.cpp:93-222).  Diagonal
 k-mer-match counting is vectorized with numpy; the envelope is exposed to
 device kernels as a per-diagonal membership set and a dense [X+1, Y+1]
-boolean mask (dense masked cells cost nothing on the VPU, so unlike the
+boolean mask (dense masked cells cost nothing on the vector units, so unlike the
 C++ sparse storage the kernel just masks).
 
 Deterministic by design: the reference auto-tunes its k-mer threshold to

@@ -1,6 +1,6 @@
 """Transducer-composition Forward/Backward DP over profile pairs.
 
-TPU-native counterpart of the reference's central DP
+Counterpart of the reference's central DP
 (/root/reference/src/forward.h:11-227, forward.cpp): compose two child
 profiles through the two-branch PairHMM, in a banded envelope, producing
 the ancestral profile by stochastic/best traceback and chain-collapsed
@@ -13,7 +13,7 @@ map-of-maps storage):
   mask; out-of-band cells are -inf, matching sparse-storage semantics;
 - emission scores are precomputed for ALL states at once: insx/rootsubx
   as [S] vectors and the xy-absorb matrix as a single exp-space matmul
-  over [Sx, C*A] x [C*A, Sy] (this is where the FLOPs are -- MXU work);
+  over [Sx, C*A] x [C*A, Sy] (this is where the FLOPs are -- matmul work);
 - the fill vectorizes whole y-rows per x-state: x-edge contributions are
   numpy vector ops + a segment logaddexp over the flat y-edge list;
   only the within-row (y-direction) recursion walks sequentially.
@@ -201,7 +201,7 @@ class DPMatrix:
         )
 
         # xy-absorb matrix: lse_{c,a}(logRoot + subx_i + suby_j) for all (i, j)
-        # as an exp-space matmul with per-state max shifts (MXU-shaped work).
+        # as an exp-space matmul with per-state max shifts (matmul-shaped work).
         # LAZY (see the `absorb` property): device-resident merges derive
         # emission on device from the O(L*CA) factors and never read the
         # dense host matrix -- a 6144^2 merge's is 300 MB / ~0.7 s.
@@ -263,7 +263,7 @@ class DPMatrix:
     def absorb(self) -> np.ndarray:
         """Dense [Sx, Sy] xy-absorb matrix, computed on first access:
         lse_{c,a}(logRoot + subx_i + suby_j) as an exp-space matmul with
-        per-state max shifts (MXU-shaped work).  Device-resident merges
+        per-state max shifts (matmul-shaped work).  Device-resident merges
         never touch it (a 6144^2 merge's is 300 MB / ~0.7 s host time)."""
         if self._absorb is None:
             ex, shift_x, ey, shift_y = self.absorb_factors
@@ -494,7 +494,6 @@ class ForwardMatrix(DPMatrix):
             # pins a plain threshold; HISTORIAN_DEVICE_DP=1 forces the
             # device (tests, benches).
             return False
-        min_cells = devicedp.min_device_cells()
         t0 = time.perf_counter() if devicedp.TIMING else 0.0
         if self._defer_cells and devicedp.trace_enabled() and self.sumprod is None:
             handle = devicedp.col_forward_device(self)
@@ -512,12 +511,6 @@ class ForwardMatrix(DPMatrix):
                         file=sys.stderr, flush=True,
                     )
                 return True
-            if min_cells:
-                # no resident route for this merge (non-chain x or planes
-                # over the HBM budget); on a remote-latency backend the
-                # full-band readback below cannot beat the host wavefront
-                # fill either -- keep the merge on the host
-                return False
         cells_np = devicedp.chain_forward_cells(self)
         kind = "chain"
         if cells_np is None:

@@ -1,6 +1,6 @@
 """Two-branch composed pair transducer.
 
-TPU-native counterpart of the reference's PairHMM
+Counterpart of the reference's PairHMM
 (/root/reference/src/pairhmm.h:8-65, pairhmm.cpp:17-44): the composition
 of two single-branch Match/Insert/Delete transducers (left and right
 child of an ancestral node) into a 5-live-state machine

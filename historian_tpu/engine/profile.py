@@ -1,6 +1,6 @@
 """Weighted finite-state profiles over alignment columns.
 
-TPU-native counterpart of the reference's Profile
+Counterpart of the reference's Profile
 (/root/reference/src/profile.h:13-76): the ancestral-sequence data
 structure.  States are toposorted; each is either null or emits with a
 [C, A] log-absorption tensor; transitions carry a log-probability, a best

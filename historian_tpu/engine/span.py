@@ -1,7 +1,7 @@
 """Guide-alignment graph: pairwise align a set of edges, take the maximum
 spanning tree, merge the MST paths into one multiple alignment.
 
-TPU-native counterpart of the reference's AlignGraph
+Counterpart of the reference's AlignGraph
 (/root/reference/src/span.h:9-52, span.cpp:35-158).  Edge sets are either
 all-vs-all (-allspan) or an Erdos-Renyi-style random graph of
 ~N*log2(N) edges grown until connected.  Pairwise fills run through the

@@ -1,6 +1,6 @@
 """Sufficient statistics for EM rate fitting.
 
-TPU-native counterpart of the reference's count structures
+Counterpart of the reference's count structures
 (/root/reference/src/model.h:165-229):
 
 - IndelCounts: ins/del open+extend event counts and wait times plus a

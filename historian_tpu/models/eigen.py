@@ -1,6 +1,6 @@
 """Eigendecomposition machinery for rate matrices.
 
-TPU-native counterpart of the reference's EigenModel
+Counterpart of the reference's EigenModel
 (/root/reference/src/model.h:81-119, model.cpp:1135-1377): complex
 eigendecomposition of each mixture component's rate matrix, the
 closed-form eigenbasis substitution-count integral

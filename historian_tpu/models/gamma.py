@@ -3,7 +3,7 @@
 Counterpart of the reference's makeDiscretizedGammaModel
 (/root/reference/src/gamma.cpp:5-32): an N-bin equal-weight mixture whose
 rate multipliers are inverse-gamma-CDF quantiles at (c+1)/(bins+1),
-mean-normalized to 1.  On TPU the resulting mixture components shard
+mean-normalized to 1.  On the device the resulting mixture components shard
 naturally across devices (expert-parallel analogue, SURVEY.md 2.7).
 """
 

@@ -1,6 +1,6 @@
 """Continuous-time substitution + indel rate models.
 
-TPU-native counterpart of the reference's model layer
+Counterpart of the reference's model layer
 (/root/reference/src/model.h:43-163).  A RateModel is a mixture of
 components, each with a root/insert probability vector and a rate matrix,
 plus four global indel parameters.  All arrays are dense numpy float64
@@ -364,21 +364,9 @@ class RateModel:
         n = len(gapped_seqs)
         dist = np.zeros((n, n))
         if use_device and n > 2:
-            try:
-                from historian_tpu.ops import devicedp
-                from historian_tpu.ops.distance import batched_ml_distances
+            from historian_tpu.ops.distance import batched_ml_distances
 
-                # latency-aware placement: the all-pairs grid solve is a
-                # single small dispatch (pairs x grid x A^2 flops); below
-                # the remote-dispatch threshold it runs the same XLA code
-                # on the in-process CPU backend (devicedp.small_work_device)
-                work = (n * (n - 1) // 2) * 96 * self.alphabet_size ** 2
-                if work >= devicedp.min_device_cells():
-                    return batched_ml_distances(self, gapped_seqs, max_iterations)
-                with devicedp.small_work_device():
-                    return batched_ml_distances(self, gapped_seqs, max_iterations)
-            except Exception:
-                pass
+            return batched_ml_distances(self, gapped_seqs, max_iterations)
         for i in range(n):
             for j in range(i + 1, n):
                 dist[i, j] = dist[j, i] = self.ml_distance(

@@ -148,3 +148,77 @@ def col_pair_forward_cells(
           rootsub_y, ins_y, y_null, y_ready)
     cells, _ = jax.lax.scan(col_step, cells0, xs)
     return cells
+
+
+# ---------------------------------------------------------------- col route
+# The production route (ops/devicedp.py::col_forward_cells) builds the
+# emission and the band mask on device and runs the column scan in ONE
+# jit.  `kernel` picks the scan: "xla" (col_pair_forward_cells above) or
+# "cuda" (ops/cuda_colforward.py, one launch per merge).  `v` is the dict
+# of per-row / per-column vectors (rsx, isx, rsy, isy, trans, x_ready,
+# x_eos, y_src, y_lp, y_null, y_ready).
+
+
+def col_planes(kernel: str, absorb, mask, v):
+    """Column scan over a built [SY, SX] absorb/mask -> [5, SY, SX]."""
+    if kernel == "cuda":
+        from historian_tpu.ops.cuda_colforward import col_forward_planes
+
+        return col_forward_planes(absorb, mask, v)
+    cells = col_pair_forward_cells(
+        absorb, v["rsx"], v["isx"], v["rsy"], v["isy"], mask, v["trans"],
+        v["x_ready"], v["x_eos"], v["y_src"], v["y_lp"], v["y_null"],
+        v["y_ready"],
+    )
+    return jnp.moveaxis(cells, -1, 0)
+
+
+def _gate(dense, mask):
+    neg = jnp.asarray(NEG, dense.dtype)
+    return jnp.where(mask, jnp.maximum(dense, neg), neg)
+
+
+def absorb_vecmask(ey_e, ex_e, shift_y, shift_x, m2, m1, dist, yne, xns, ny, nx):
+    """Factored emission absorb[j, i] = log(ey_e[j] . ex_e[i]) + shifts,
+    with the band mask rebuilt from the envelope's O(L) vectors
+    (engine/forward.py env_vectors: near_end[j] | near_start[i] |
+    |m2[j] - m1[i]| <= dist), ANDed with the real-region bounds so
+    padded rows and columns are always out of band."""
+    dense = jnp.log(ey_e @ ex_e.T) + shift_y[:, None] + shift_x[None, :]
+    in_range = (
+        (jnp.arange(ey_e.shape[0]) < ny)[:, None]
+        & (jnp.arange(ex_e.shape[0]) < nx)[None, :]
+    )
+    mask = in_range & (
+        yne[:, None] | xns[None, :] | (jnp.abs(m2[:, None] - m1[None, :]) <= dist)
+    )
+    return _gate(dense, mask), mask
+
+
+def absorb_idx(ey_e, ex_e, shift_y, shift_x, idx):
+    """Factored emission gated by a mask scattered from flat in-band
+    indices (ops/devicedp._mask_idx; out-of-range sentinels drop)."""
+    SY, SX = ey_e.shape[0], ex_e.shape[0]
+    dense = jnp.log(ey_e @ ex_e.T) + shift_y[:, None] + shift_x[None, :]
+    mask = jnp.zeros((SY * SX,), bool).at[idx].set(True, mode="drop").reshape(SY, SX)
+    return _gate(dense, mask), mask
+
+
+@partial(jax.jit, static_argnames=("kernel",))
+def fill_planes(absorb, mask, v, *, kernel):
+    return col_planes(kernel, absorb, mask, v)
+
+
+@partial(jax.jit, static_argnames=("kernel",))
+def fill_vecmask(v, ey_e, ex_e, shift_y, shift_x, m2, m1, dist, yne, xns,
+                 ny, nx, *, kernel):
+    absorb, mask = absorb_vecmask(
+        ey_e, ex_e, shift_y, shift_x, m2, m1, dist, yne, xns, ny, nx
+    )
+    return col_planes(kernel, absorb, mask, v)
+
+
+@partial(jax.jit, static_argnames=("kernel",))
+def fill_idx(v, ey_e, ex_e, shift_y, shift_x, idx, *, kernel):
+    absorb, mask = absorb_idx(ey_e, ex_e, shift_y, shift_x, idx)
+    return col_planes(kernel, absorb, mask, v)

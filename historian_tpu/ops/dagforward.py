@@ -9,7 +9,7 @@ states -- so the DP decomposes as
 
 - a lax.scan over x states (rows) carrying the full banded cell tensor;
   x-direction contributions gather K-padded in-edge source rows and
-  reduce them with vector ops over all y (VPU work);
+  reduce them with vector ops over all y (vector-unit work);
 - a within-row solve for the y-direction recurrences (IDM/IMI, and IMM
   through null-y states), decomposed exactly into
     (1) a few gather iterations for IMM at null-y columns,

@@ -7,7 +7,7 @@ Here all pairs are solved together on device:
 
 1. pair count matrices [P, A, A] by one-hot einsum over aligned columns;
 2. NLL for all pairs on a shared log-spaced t-grid in one einsum
-   [P,A,A] x [T,A,A] (MXU work) using eigendecomposed P(t) = V e^{Lt} V^-1
+   [P,A,A] x [T,A,A] (matmul work) using eigendecomposed P(t) = V e^{Lt} V^-1
    evaluated for the whole grid at once;
 3. vectorized golden-section refinement: every pair iterates in lockstep
    with its own bracket.

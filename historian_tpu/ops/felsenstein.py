@@ -1,11 +1,11 @@
 """Column-batched Felsenstein pruning (sum-product on a tree).
 
-TPU-native counterpart of the reference's SumProduct engine
+Counterpart of the reference's SumProduct engine
 (/root/reference/src/sumprod.cpp:99-372).  The reference processes one
 alignment column at a time with per-node scalar loops; here all columns
 are batched (vmap) and the tree walk is a lax.scan over the postorder
 node sequence, so each scan step is a [Cols, C, A] x [A, A] batched
-matrix product on the MXU.
+matrix product.
 
 Gap handling follows the reference's sub-forest semantics
 (sumprod.cpp:58-97): a gapped node passes E = ones; an ungapped node
@@ -288,7 +288,7 @@ def _eigen_counts_core_cplx(F, logF, E, logE, G, logG, col_ll, parent_safe,
                             evec_r, evec_i, evec_inv_r, evec_inv_i, j_r, j_i):
     """Complex-eigensystem variant of `_eigen_counts_batch`, decomposed
     into real einsums so it runs on backends without complex support
-    (TPU): with real messages D0, U0 and complex evec/evecInv/J,
+    (the device path): with real messages D0, U0 and complex evec/evecInv/J,
 
       out[c,k,m] = sum_{l,n} w * (D0 . evec)_k (U0 . evecInv^T)_m J_km
 

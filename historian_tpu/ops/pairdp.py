@@ -1,9 +1,9 @@
 """Banded pairwise Viterbi DP kernel.
 
-TPU-native counterpart of the reference's QuickAlignMatrix fill
+Counterpart of the reference's QuickAlignMatrix fill
 (/root/reference/src/quickalign.cpp:52-99).  The reference iterates cell
 by cell inside a sparse diagonal envelope; here the fill is a lax.scan
-over y-columns with every x-row computed in parallel on the VPU:
+over y-columns with every x-row computed in parallel on the vector units:
 
 - Match/Insert depend only on the previous column -> pure vector ops.
 - Delete's within-column recursion del[i] = max(base[i], del[i-1]+d2d)

@@ -1,13 +1,13 @@
 """Device kernel: 5-state pair-transducer Forward DP over sequence chains.
 
-This is the TPU hot path for the composition DP when both child profiles
+This is the device hot path for the composition DP when both child profiles
 are chains (leaf sequences, or linearized sampled profiles): the general
 DAG machinery (engine/forward.py) reduces to the classic banded pair-HMM
 recurrence, which maps cleanly onto XLA:
 
 - lax.scan over x positions (rows);
 - IMD/IIW/IMM contributions read only the previous row -> vector ops
-  across all y positions on the VPU;
+  across all y positions on the vector units;
 - the within-row IDM/IMI recurrences u[j] = a[j] lse (u[j-1] + b) are
   affine in the (log, +, logsumexp) semiring -> jax.lax.associative_scan
   with the affine-composition operator, O(log Y) depth instead of a
@@ -15,7 +15,7 @@ recurrence, which maps cleanly onto XLA:
 
 Emission tensors (rootsub pair-absorb matrix, per-position insert scores)
 are batched einsums computed once up front -- that is where the FLOPs
-are, and they land on the MXU.
+are, and they run as matmuls.
 
 State indexing matches engine/pairhmm.py: IMM, IMD, IDM, IMI, IIW.
 """

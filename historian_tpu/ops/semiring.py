@@ -22,10 +22,9 @@ def lse(*xs):
 def cumsum(x):
     """Inclusive prefix sum via associative_scan.
 
-    jnp.cumsum lowers to a padded reduce-window on TPU, whose scratch
-    scales with length^2 and blows the scoped-VMEM limit around length
-    ~512 (XLA "should not be possible to run out of scoped vmem" bug);
-    associative_scan lowers to log-depth slice/concat and stays small."""
+    jnp.cumsum can lower to a padded reduce-window whose scratch scales
+    with length^2; associative_scan lowers to log-depth slice/concat and
+    stays small."""
     return jax.lax.associative_scan(jnp.add, x)
 
 

@@ -1,6 +1,6 @@
 """Device kernel: 11-state sibling transducer Forward DP.
 
-TPU form of the reference's Sampler::SiblingMatrix fill
+Device form of the reference's Sampler::SiblingMatrix fill
 (/root/reference/src/sampler.cpp:1185-1341): aligning two sibling
 profiles (left, right) under a parent, with the IDD self-loop already
 eliminated from the transition table (geometric; re-inserted during

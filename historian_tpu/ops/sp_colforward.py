@@ -17,7 +17,7 @@ cross the ring:
   log2(n)-step ring scan composes the segment summaries
   (ops/sp_pairforward._ring_affine_carry).
 
-Communication is O(SY * log n) scalars per merge -- pure ICI latency --
+Communication is O(SY * log n) scalars per merge -- pure interconnect latency --
 while each device's column step does 1/n of the O(KY * SX) vector work,
 so the fill approaches 1/n wall-clock as SX grows (long-sequence
 scaling, SURVEY.md 2.7 sp / 5.long-context).

@@ -1,6 +1,6 @@
 """Sequence-parallel (SP) pair-transducer Forward DP over a device mesh.
 
-Distributes the 5-state chain DP (ops/pairforward.py, the TPU form of the
+Distributes the 5-state chain DP (ops/pairforward.py, the device form of the
 reference's composed-transducer fill, forward.cpp:68-223) across devices
 by sharding the Y (column) axis over a mesh axis -- the ring-wavefront
 decomposition: each device owns a contiguous column block, and every row
@@ -16,7 +16,7 @@ step exchanges two tiny messages over the ring:
   the incoming carry u_in; the local fixup is
       u[j] = lse(u_local[j], u_in + cumsum(b)[j]).
 
-Communication is O(X * log n) scalars per pair -- pure ICI latency, no
+Communication is O(X * log n) scalars per pair -- pure interconnect latency, no
 bandwidth term -- so wall-clock approaches 1/n of the single-chip fill as
 Y grows.  This is the SP/CP axis of the parallelism plan (SURVEY.md 2.7);
 dp/ep axes compose with it by vmapping the wrapper over a batch.
@@ -106,7 +106,7 @@ def sp_pair_forward_batch(absorb, rootsub_x, rootsub_y, ins_x, ins_y, mask, tran
                           mesh: Mesh, dp_axis: str = "dp", sp_axis: str = "sp"):
     """dp x sp composition: the batch shards over `dp_axis` while each
     pair's columns shard over `sp_axis` (2-D mesh).  Batched args as
-    pallas_pair_forward_lp; mask/trans shared.  Returns lp_end [B]."""
+    the batched pair kernel; mask/trans shared.  Returns lp_end [B]."""
     B, X1, Y1 = absorb.shape
     n_sp = mesh.shape[sp_axis]
     pad = (-Y1) % n_sp

@@ -1,12 +1,10 @@
 """Tropical (max-plus / Viterbi) variant of the pair-transducer DP.
 
-The Forward kernel (ops/pairforward.py) is LOGSUMEXP-bound on the VPU:
-docs/ROOFLINE.md measures ~2.06e11 chained lse/s on this chip and the
-headline kernel saturates that ceiling, so the only way past it is
-FEWER lse per cell (VERDICT r4 #10).  In the tropical semiring
-(max, +) every one of the ~18 logsumexp ops per 5-state cell becomes a
-max+add -- no exp/log -- which raises the attainable cells/s by the
-VPU's lse:max cost ratio.
+The Forward kernel (ops/pairforward.py) is LOGSUMEXP-bound: each
+5-state cell costs ~18 chained log-sum-exps, so the way past that
+ceiling is FEWER lse per cell.  In the tropical semiring (max, +) every
+one of them becomes a max+add -- no exp/log -- which raises the
+attainable cells/s by the vector units' lse:max cost ratio.
 
 Where this is SOUND (the reference itself runs Viterbi there):
 

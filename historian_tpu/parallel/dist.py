@@ -1,20 +1,21 @@
 """Multi-host (DCN) initialization for the count/fit mesh.
 
-Single-host scaling rides ICI via the dp mesh in parallel/pcounts; this
+Single-host scaling rides NVLink via the dp mesh in parallel/pcounts; this
 module adds the standard JAX multi-host recipe on top (SURVEY.md 2.7:
-jax.distributed + a global mesh, the TPU-native analogue of running the
+jax.distributed + a global mesh, the on-device analogue of running the
 reference's count/sum file MapReduce across machines):
 
 - every process calls `init_from_env()` before first device use;
 - `jax.devices()` then reports the GLOBAL device list, so
-  `pcounts.set_mesh(n)` builds a mesh whose collectives ride ICI within
-  a host and DCN across hosts -- no other code changes, psum is psum;
+  `pcounts.set_mesh(n)` builds a mesh whose collectives ride NVLink
+  within a host and the network across hosts -- no other code changes,
+  psum is psum;
 - EM/MCMC restart after a host failure is the checkpoint story
   (utils/checkpoint): snapshots are deterministic host-side state, so
   every process restores identically from the same file.
 
 Configuration comes from the standard JAX/cluster env vars when present
-(JAX detects Cloud TPU / GKE / Slurm automatically) or from explicit
+(JAX detects GKE / Slurm automatically) or from explicit
 HISTORIAN_COORDINATOR / HISTORIAN_NUM_PROCESSES / HISTORIAN_PROCESS_ID.
 The CLI triggers this when HISTORIAN_DIST=1 (or any of the explicit
 vars) is set; single-process initialization is exercised in tests.

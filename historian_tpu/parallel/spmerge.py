@@ -8,7 +8,7 @@ fill dispatch + recon.py level scheduler):
 - **SP (sequence parallel)**: a long merge's x chain shards over every
   mesh device and the column scan runs as a ring wavefront
   (ops/sp_colforward.py -- per column, five boundary scalars and two
-  log2(n)-step affine-carry ring scans cross ICI while each device does
+  log2(n)-step affine-carry ring scans cross devices while each device does
   1/n of the vector work).  Exact: same recurrences, reassociated.
 - **DP (data parallel)**: independent same-level merges round-robin
   over the mesh devices, so a level's single-device resident fills run
@@ -25,12 +25,15 @@ import os
 
 import numpy as np
 
-#: minimum sharded-away x-vector work per column for the ring latency to
-#: pay: the single-device column step costs ~SX * c vector time (c ~ 4ns
-#: per x lane, measured at SX=6144 ~ 26us/column); SP replaces it with
-#: SX * c / n plus ~2 log2(n) + 3 ppermute hops (~20-30 us on ICI).  The
-#: saved work SX * c * (1 - 1/n) must exceed the hop latency, which puts
-#: the crossover near SX ~ 8k for n = 8.
+#: minimum sharded-away x rows per column for the ring to pay: SP
+#: replaces a single-device column step with 1/n of its vector work plus
+#: ~2 log2(n) + 3 ppermute hops per column, so the x rows it shards away,
+#: SX * (1 - 1/n), must exceed a crossover.  A prior that the H100 does
+#: not bear out: on four NVIDIA H100 80GB HBM3 (700 W power limit),
+#: `recon -fast -noband -mesh 4` on tests/data/long8x12k (8 ring merges
+#: at SX ~11000) took 258 s against 26.5 s on one card with the CUDA
+#: column kernel (chip_smoke.py --cards 4).  Kept so that -mesh still
+#: drives the ring until it is re-fit or rewritten.
 SP_MIN_SX = int(float(os.environ.get("HISTORIAN_SP_MIN_SX", "8192")))
 
 _SP_CACHE: tuple = (None, None)

@@ -1,6 +1,6 @@
 """Forward simulation of evolutionary histories.
 
-TPU-native counterpart of the reference's Simulator
+Counterpart of the reference's Simulator
 (/root/reference/src/simulator.cpp): indels by Gillespie simulation on
 each branch (total rate (L+1)*insRate + L*delRate, geometric lengths),
 substitutions by sampling from matrix exponentials down the tree with

@@ -1,6 +1,6 @@
 """Leveled logging with per-tag filters and progress/ETA reporting.
 
-TPU-native equivalent of the reference's Logger/ProgressLogger
+Equivalent of the reference's Logger/ProgressLogger
 (/root/reference/src/logger.h:18-93): verbosity levels -v..-v9, per-tag
 enablement, ANSI color by level, and percent+ETA progress lines for long
 loops.  Kept host-side and stateless with respect to device code.

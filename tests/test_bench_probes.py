@@ -1,23 +1,17 @@
 """Guard: every bench.py extras probe runs clean on a tiny workload.
 
-Round 4 shipped a BENCH_EXTRAS.json whose production_col_forward and
-router_crossover sections were the literal string
-"error: AttributeError: property 'absorb' ... has no setter": a lazy-
-property refactor broke the probes' perturb paths and nothing in the
-battery exercised them (VERDICT r4 weak #1).  Each probe now takes
-tiny=True, which shrinks its workload to milliseconds; this test runs
-all of them on the CPU backend and asserts no section -- at any nesting
-depth -- carries an "error:" payload.  A refactor that breaks a probe
-now fails the fast tier instead of silently corrupting the round's
-bench record.
+A lazy-property refactor once broke the probes' perturb paths and
+nothing in the battery exercised them, so a bench record carried
+"error: ..." strings instead of numbers.  Each probe takes tiny=True,
+which shrinks its workload to milliseconds; this test runs all of them
+on the CPU backend and asserts no section -- at any nesting depth --
+carries an "error:" payload.
 """
 
-import functools
 import os
 import sys
 
 import pytest
-from jax.experimental import pallas as pl
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -33,14 +27,6 @@ def _assert_no_errors(obj, path="$"):
     elif isinstance(obj, (list, tuple)):
         for i, v in enumerate(obj):
             _assert_no_errors(v, f"{path}[{i}]")
-
-
-@pytest.fixture
-def interpret_pallas(monkeypatch):
-    # CPU backend: pallas kernels run in interpret mode (as in test_pallas)
-    monkeypatch.setattr(
-        pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)
-    )
 
 
 @pytest.mark.parametrize(
@@ -61,7 +47,7 @@ def test_extras_probe_runs_clean(probe):
     _assert_no_errors(out, probe)
 
 
-def test_codon_probe_runs_clean(interpret_pallas):
+def test_codon_probe_runs_clean():
     out = bench.bench_codon(tiny=True)
     assert isinstance(out, dict)
     _assert_no_errors(out, "bench_codon")

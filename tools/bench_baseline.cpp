@@ -3,7 +3,7 @@
 // Re-creates the computational shape of the reference implementation's
 // hot loop (5-state composed-transducer Forward fill with lookup-table
 // log-sum-exp over a dense profile-pair grid; see SURVEY.md 2.4) so the
-// TPU kernel's throughput can be compared against an honest optimized
+// device kernel's throughput can be compared against an honest optimized
 // single-core C++ rate measured on the same machine.
 //
 // Build: g++ -O3 -march=native -o bench_baseline bench_baseline.cpp

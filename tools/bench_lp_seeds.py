@@ -1,12 +1,12 @@
 #!/usr/bin/env python
-"""Adjudicate the default-mode TPU-vs-CPU reconstruction quality gap
-(VERDICT r3 #5): run the flagship gp120 default recon over several
-mt19937 seeds on both platforms and record the final #=GF LP
-distributions in E2E_TPU.json.
+"""Adjudicate the default-mode GPU-vs-CPU reconstruction quality gap:
+run the flagship gp120 default recon over several mt19937 seeds on both
+platforms and record the final #=GF LP distributions in
+chiprun_out/lp_seeds.json.
 
 The platforms CANNOT be draw-for-draw identical by design: CPU fills
 are f64 with host tracebacks (bit-compatible with the reference path);
-`-platform tpu` routes big merges to f32 device fills with on-device
+`-platform gpu` routes big merges to f32 device fills with on-device
 trace walks (different RNG stream entirely, ops/tracedp.py).  Each
 platform IS deterministic given a seed, so the honest comparison is the
 LP distribution over seeds: overlapping distributions = seed noise;
@@ -39,30 +39,26 @@ def run(platform: str, seed: int) -> tuple[float, float]:
 
 
 def main() -> None:
-    out = {"seeds": SEEDS, "lp_cpu": [], "lp_tpu": [], "note": __doc__.strip().splitlines()[0]}
+    out = {"seeds": SEEDS, "lp_cpu": [], "lp_gpu": [], "note": __doc__.strip().splitlines()[0]}
     for seed in SEEDS:
-        for platform in ("cpu", "tpu"):
+        for platform in ("cpu", "gpu"):
             lp, wall = run(platform, seed)
             out[f"lp_{platform}"].append(lp)
             print(f"seed {seed} {platform}: LP {lp:.3f} ({wall:.1f}s)", file=sys.stderr)
-    cpu, tpu = out["lp_cpu"], out["lp_tpu"]
+    cpu, gpu = out["lp_cpu"], out["lp_gpu"]
     mean = lambda v: sum(v) / len(v)
     out["mean_cpu"] = round(mean(cpu), 3)
-    out["mean_tpu"] = round(mean(tpu), 3)
-    out["mean_gap_nats"] = round(mean(cpu) - mean(tpu), 3)
-    spread = max(max(cpu) - min(cpu), max(tpu) - min(tpu))
+    out["mean_gpu"] = round(mean(gpu), 3)
+    out["mean_gap_nats"] = round(mean(cpu) - mean(gpu), 3)
+    spread = max(max(cpu) - min(cpu), max(gpu) - min(gpu))
     out["max_within_platform_spread_nats"] = round(spread, 3)
     out["verdict"] = (
         "systematic" if abs(out["mean_gap_nats"]) > spread else "seed-noise"
     )
-    path = os.path.join(REPO, "E2E_TPU.json")
-    existing = {}
-    if os.path.exists(path):
-        with open(path) as f:
-            existing = json.load(f)
-    existing["lp_seed_study"] = out
+    path = os.path.join(REPO, "chiprun_out", "lp_seeds.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
-        json.dump(existing, f, indent=1)
+        json.dump(out, f, indent=1)
     print(json.dumps(out))
 
 
